@@ -22,7 +22,8 @@ in four phases; any failure exits non-zero and no result line is printed.
 4. Times, with CUDA events after a warm-up: each kernel at its main-path
    shape beside its bound, its plain version and one PyTorch library call
    computing the same function (``conv3d`` / ``conv1d`` plus the ring
-   mask, TF32 off).
+   mask, TF32 off), for stencil27 in f32 and f64; then ``stencil_apply``
+   with 8 and 64 sweeps, per sweep.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -88,7 +89,8 @@ def main():
              "CUDA device")
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels.stencil_engine import (
-        autotune_engine, build_kernels, compile_plan, pick_block_rows,
+        autotune_engine, build_kernels, bytes_per_point, compile_plan,
+        pick_block_rows,
         stencil_apply, stencil_rows, stencil_rows_plain, stencil_stream,
         stencil_stream_plain)
     from repro_torch.kernels.stencil_engine.kernel import acc_dtype_for
@@ -253,22 +255,23 @@ def main():
         pts = a.numel()
         bytes_bound = 2 * a.element_size() * pts / HBM_BYTES_PER_S * 1e3
         ops_bound = 2 * plan.spec.taps * pts / PEAK_FLOPS[dtype] * 1e3
-        library_ms = None
-        if dtype == torch.float32:
-            # conv3d is a cross-correlation: weight[d + r] scales u[x + d]
-            wt = torch.zeros(3, 3, 3, device=dev, dtype=dtype)
-            for (di, dj, dk), wi in zip(plan.spec.offsets, plan.spec.w_index):
-                wt[di + 1, dj + 1, dk + 1] = w[wi]
-            wt = wt.view(1, 1, 3, 3, 3)
-            mask = ring_mask((N, N, N))
+        # conv3d is a cross-correlation: weight[d + r] scales u[x + d]
+        wt = torch.zeros(3, 3, 3, device=dev, dtype=dtype)
+        for (di, dj, dk), wi in zip(plan.spec.offsets, plan.spec.w_index):
+            wt[di + 1, dj + 1, dk + 1] = w[wi]
+        wt = wt.view(1, 1, 3, 3, 3)
+        mask = ring_mask((N, N, N))
 
-            def library():
-                return torch.nn.functional.conv3d(a, wt, padding=1) * mask
-            lib_out = library()
-            err = max_abs(lib_out, stencil_stream(a, w, plan, bi, bj, 1))
-            check(err < 1e-3, f"conv3d yardstick disagrees: {err}")
-            library_ms = cuda_time_ms(library, reps=5, warmup=1)
-            del lib_out
+        def library():
+            return torch.nn.functional.conv3d(a, wt, padding=1) * mask
+        lib_out = library()
+        err = max_abs(lib_out, stencil_stream(a, w, plan, bi, bj, 1))
+        # 1e-3 in f32, scaled by the unit roundoff for f64
+        lib_tol = 1e-3 * torch.finfo(dtype).eps / EPS32
+        check(err < lib_tol, f"conv3d yardstick disagrees in {dtype}: "
+              f"{err} >= {lib_tol}")
+        library_ms = cuda_time_ms(library, reps=5, warmup=1)
+        del lib_out
         row = {"name": "stencil_stream", "dtype": str(dtype)[6:],
                "shape": [1, N, N, N], "spec": "stencil27", "sweeps": 1,
                "block_i": bi, "block_j": bj, "ms": ms, "plain_ms": plain_ms,
@@ -330,11 +333,31 @@ def main():
     for row in times:
         print("[times] " + json.dumps(row))
 
+    # many-sweep Jacobi runs, one launch per sweep: the blocks
+    # stencil_apply picks against (64, 32), the pick of a chooser that held
+    # chosen blocks to the fused kernel's halo r_i * sweeps
+    w27 = torch.randn(2, 2, 2, generator=gen)
+    plan27 = compile_plan("stencil27")
+    w27f = w27.reshape(-1).to(dev)
+    for sweeps in (8, 64):
+        _, bi, bj = autotune_engine(N, N, N, 4, sweeps=sweeps, plan=plan27)
+        row = {"spec": "stencil27", "dtype": "float32", "shape": [1, N, N, N],
+               "sweeps": sweeps, "block_i": bi, "block_j": bj}
+        for key, (qi, qj) in (("ms_per_sweep", (bi, bj)),
+                              ("ms_per_sweep_at_64_32", (64, 32))):
+            row[key] = cuda_time_ms(
+                lambda: stencil_stream(field32, w27f, plan27, qi, qj, sweeps),
+                reps=3, warmup=1) / sweeps
+        # the chained launches' bytes (autotune.py:bytes_per_point)
+        row["bytes_bound_ms_per_sweep"] = (
+            bytes_per_point("stream", 4, sweeps) * N ** 3
+            / HBM_BYTES_PER_S * 1e3)
+        print("[sweeps] " + json.dumps(row))
+
     # end to end: back-to-back stencil_apply calls, weights on the host as
     # a user passes them; host clock without the profiler, then the
     # device's busy share from the profiler over a second window
     from torch.profiler import ProfilerActivity, profile
-    w27 = torch.randn(2, 2, 2, generator=gen)
     calls = 20
 
     def apply_calls():

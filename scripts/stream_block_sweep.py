@@ -4,10 +4,11 @@
 
 For each spec and dtype, on a (1, n, n, n) field: one sweep of
 ``stencil_stream`` at every (block_i, block_j) the block chooser considers,
-timed with CUDA events after a warm-up, beside the chooser's pick and its
-modeled tile cost.  The table is what ``autotune.py``'s cost model is
-checked against.  Needs a CUDA device; prints one JSON line per case and
-the card's name and power limit first.
+timed with CUDA events after a warm-up, beside the chooser's pick and the
+j-tile height it prefers.  The table is what ``autotune.py``'s
+``preferred_block_j`` was read from; rerun it after changing the kernel.
+Needs a CUDA device; prints one JSON line per case and the card's name and
+power limit first.
 """
 
 import argparse
@@ -24,7 +25,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=512)
-    ap.add_argument("--specs", default="stencil27,stencil7,box125")
+    ap.add_argument("--specs", default="stencil27,stencil7,box125,star13")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -35,7 +36,7 @@ def main():
                                                     compile_plan,
                                                     stencil_stream)
     from repro_torch.kernels.stencil_engine.autotune import (
-        BLOCK_J_CANDIDATES, _stream_tile_cost)
+        BLOCK_J_CANDIDATES, preferred_block_j)
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -70,9 +71,8 @@ def main():
                     "spec": name, "dtype": str(dtype)[6:], "n": n,
                     "block_i": bi, "block_j": bj,
                     "ms": start.elapsed_time(end) / args.reps,
-                    "modeled_tile_cost": _stream_tile_cost(
-                        bj, tuple(plan.spec.radius), a.element_size(),
-                        plan.spec.taps),
+                    "preferred_block_j": preferred_block_j(
+                        a.element_size(), plan.spec.taps),
                     "chosen": (bi, bj) == (pbi, pbj)}))
         del a
 

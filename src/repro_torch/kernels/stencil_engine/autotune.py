@@ -5,40 +5,35 @@ one ``(block_j x STREAM_TILE_K)`` tile of the ``(j, k)`` plane and one chunk
 of ``block_i`` planes along i, which the block walks after an ``r_i``-plane
 lead-in, keeping a rotating window of ``2 r_i + 1`` halo-widened planes in
 shared memory.  Each of its ``STREAM_THREAD_ROWS`` rows of threads computes
-``rows_per_thread(block_j)`` rows of the tile.  The chooser weighs:
+``rows_per_thread(block_j)`` rows of the tile.  The chooser asks, in order:
 
 * **enough blocks to fill the card** -- at least ``BLOCKS_PER_SM *
-  NUM_SMS`` blocks, first of all;
-* **shared-memory instructions per point** -- the kernel's limit: per tap,
-  one packed (weight, offset) load serves all of a thread's rows and each
-  row adds one data load and one FMA, so a point costs about ``2 + 5 /
-  rows_per_thread`` instructions per tap;
-* **resident blocks per SM** -- the window, ``(2 r_i + 1)(rows + 2 r_j)
-  (STREAM_TILE_K + 2 r_k)`` accumulation-dtype values, must fit
-  :data:`~.common.SMEM_PER_BLOCK`, and the SM's 228 KB are shared by its
-  resident blocks: fewer than ``BLOCKS_PER_SM`` leave less to hide latency
-  with, a penalty of ``(BLOCKS_PER_SM / resident) ** (0.4 * min(1, 27 /
-  taps))`` -- a spec with more taps per loaded plane has more independent
-  loads in flight per warp and needs fewer warps;
+  NUM_SMS`` blocks;
+* **the measured j-tile height** (:func:`preferred_block_j`) -- more rows
+  per thread share each tap's (weight, offset) load, until the window and
+  the registers leave too few blocks resident: on an H100 SXM the tallest
+  tile (64) was fastest in f32 for stencil7, stencil27, star13 and box125,
+  and 32 in f64 for stencil7, star13 and stencil27, with box125 (125 taps
+  per plane load) back at 64 (``scripts/stream_block_sweep.py``,
+  ``PERF.md``); heights further from it rank lower;
 * **halo re-reads** -- a block reads its tile's halo ring and its chunk's
   lead-in and tail planes on top of the points it owns, so long chunks
   cost less (most of it hits the 50 MB L2).
 
-The constants were fitted to sweep times measured on an H100 SXM across
-j-tile heights, specs and dtypes (``scripts/stream_block_sweep.py``,
-``PERF.md``); the model only ranks candidates.  No TPU constant is carried over: the reference's
-``autotune.py`` ranks blocks on a TPU roofline against a VMEM budget,
-which does not describe this card.
+No TPU constant is carried over: the reference's ``autotune.py`` ranks
+blocks on a TPU roofline against a VMEM budget, which does not describe
+this card.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional, Tuple
 
 from .common import (BLOCKS_PER_SM, NUM_SMS, ROWS_THREADS, SMEM_PER_BLOCK,
-                     SMEM_PER_SM, SMEM_RESERVED_PER_BLOCK, STATIC_SMEM,
-                     STREAM_THREAD_ROWS, STREAM_TILE_K, divisors)
+                     STATIC_SMEM, STREAM_THREAD_ROWS, STREAM_TILE_K,
+                     divisors)
 
 PATH_KINDS = ("auto", "stream", "replicate")
 
@@ -99,16 +94,11 @@ def _stream_blocks(m: int, n: int, p: int, batch: int, bi: int,
     return _cdiv(p, STREAM_TILE_K) * _cdiv(n, bj) * batch * _cdiv(m, bi)
 
 
-def _stream_tile_cost(bj: int, radius: Tuple[int, int, int],
-                      acc_itemsize: int, taps: int) -> float:
-    """Modeled shared-memory instruction cost per point and tap of a j-tile
-    height, scaled up when the window leaves fewer than ``BLOCKS_PER_SM``
-    blocks resident on an SM."""
-    per_block = (stream_smem_bytes(bj, radius, acc_itemsize) + STATIC_SMEM
-                 + SMEM_RESERVED_PER_BLOCK)
-    resident = max(1, min(BLOCKS_PER_SM, SMEM_PER_SM // per_block))
-    return ((2 + 5 / rows_per_thread(bj))
-            * (BLOCKS_PER_SM / resident) ** (0.4 * min(1.0, 27 / taps)))
+def preferred_block_j(acc_itemsize: int, taps: int) -> int:
+    """The j-tile height measured fastest at 512^3 on an H100 SXM: 64 in
+    f32 accumulation, 32 in f64 for specs of up to 27 taps, 64 for more
+    (measured at 125; the crossing between 27 and 125 taps is not)."""
+    return 64 if acc_itemsize == 4 or taps > 27 else 32
 
 
 def _stream_read_factor(bi: int, bj: int,
@@ -128,11 +118,13 @@ def autotune_engine(m: int, n: int, p: int, itemsize: int,
     m, n, p)`` field.
 
     ``block_i`` (the i-chunk a block streams) runs over the divisors of
-    ``m`` no shorter than the reference's carried halo ``r_i * sweeps *
-    sweep_apps`` -- the same contract ``_validate_blocks`` holds pinned
-    blocks to; ``block_j`` (the j-tile height) over
-    :data:`BLOCK_J_CANDIDATES`, a ragged last tile masked by the kernel.
-    A pinned ``block_i`` or ``block_j`` is kept and the other is tuned.
+    ``m`` no shorter than the ``r_i``-plane lead-in; ``block_j`` (the j-tile
+    height) over :data:`BLOCK_J_CANDIDATES`, a ragged last tile masked by
+    the kernel.  The port runs one launch per sweep, so the choice does not
+    depend on ``sweeps`` (the reference's fused kernel needs ``block_i >=
+    r_i * sweeps * sweep_apps``; pinned blocks are still held to that by
+    ``ops._validate_blocks``).  A pinned ``block_i`` or ``block_j`` is kept
+    and the other is tuned.
     """
     if path not in PATH_KINDS:
         raise ValueError(f"unknown path {path!r}; expected one of "
@@ -142,36 +134,34 @@ def autotune_engine(m: int, n: int, p: int, itemsize: int,
             "path='replicate' (the stateless replicated-halo kernel) is not "
             "ported yet (ROADMAP A6); use path='stream' or 'auto'")
     rad = tuple(plan.spec.radius) if plan is not None else (1, 1, 1)
-    apps = plan.spec.sweep_apps if plan is not None else 1
     taps = plan.spec.taps if plan is not None else 27
-    return ("stream",) + _choose_stream_blocks(m, n, p, itemsize, sweeps,
-                                               rad, apps, taps, batch,
-                                               block_i, block_j)
+    return ("stream",) + _choose_stream_blocks(m, n, p, itemsize, rad, taps,
+                                               batch, block_i, block_j)
 
 
 @functools.lru_cache(maxsize=256)
 def _choose_stream_blocks(m: int, n: int, p: int, itemsize: int,
-                          sweeps: int, rad: Tuple[int, int, int], apps: int,
-                          taps: int, batch: int, block_i: Optional[int],
+                          rad: Tuple[int, int, int], taps: int, batch: int,
+                          block_i: Optional[int],
                           block_j: Optional[int]) -> Tuple[int, int]:
     """:func:`autotune_engine`'s search, memoized per shape (it runs on
     every ``stencil_apply`` call)."""
     acc = acc_itemsize_for(itemsize)
-    min_bi = max(1, rad[0] * sweeps * apps)
     cands_i = ([block_i] if block_i is not None
-               else [d for d in divisors(m) if d >= min_bi] or [m])
+               else [d for d in divisors(m) if d >= max(1, rad[0])] or [m])
     fits = [bj for bj in BLOCK_J_CANDIDATES
             if stream_smem_bytes(bj, rad, acc) + STATIC_SMEM
             <= SMEM_PER_BLOCK]
     cands_j = [block_j] if block_j is not None else fits or [8]
     want = BLOCKS_PER_SM * NUM_SMS
+    pref = preferred_block_j(acc, taps)
 
     def key(bb):
         bi, bj = bb
         blocks = _stream_blocks(m, n, p, batch, bi, bj)
         return (0 if blocks >= want else 1,
                 -blocks if blocks < want else 0,
-                _stream_tile_cost(bj, rad, acc, max(1, taps)),
+                abs(math.log2(bj / pref)), -bj,
                 _stream_read_factor(bi, bj, rad), -bi)
 
     return min(((bi, bj) for bi in cands_i for bj in cands_j), key=key)

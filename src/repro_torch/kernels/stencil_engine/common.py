@@ -17,8 +17,6 @@ from __future__ import annotations
 from typing import List
 
 SMEM_PER_BLOCK = 232_448
-SMEM_PER_SM = 233_472          # 228 KB, shared by the blocks resident on an SM
-SMEM_RESERVED_PER_BLOCK = 1024  # the runtime's own share of each block
 # Statically allocated shared memory of either kernel (tap weights and
 # offsets), an upper bound: a block's dynamic window gets the rest.
 STATIC_SMEM = 2048

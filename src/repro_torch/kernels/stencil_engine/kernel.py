@@ -83,16 +83,23 @@ def check_slice(spec: StencilSpec) -> None:
 # Plain PyTorch versions
 # ---------------------------------------------------------------------------
 
+def _interior_mask(shape, ndim: int, device) -> torch.Tensor:
+    """True off the one-point clamp ring of the trailing ``ndim`` axes --
+    the ring is one point wide at every radius (out-of-domain reads are
+    zeros).  The one place the port builds the ring."""
+    mask = torch.ones((), dtype=torch.bool, device=device)
+    for ax in range(-ndim, 0):
+        n = shape[ax]
+        idx = torch.arange(n, device=device).view(
+            (n,) + (1,) * (-ax - 1))
+        mask = mask & (idx > 0) & (idx < n - 1)
+    return mask
+
+
 def _volumetric_interior(shape, device) -> torch.Tensor:
-    """Interior (non-clamp-ring) mask of a whole ``(..., M, N, P)`` domain:
-    the clamp ring is one point wide on all three axes at every radius
-    (out-of-domain reads are zeros)."""
-    m, n, p = shape[-3:]
-    ii = torch.arange(m, device=device).view(m, 1, 1)
-    jj = torch.arange(n, device=device).view(1, n, 1)
-    kk = torch.arange(p, device=device).view(1, 1, p)
-    return ((ii > 0) & (ii < m - 1) & (jj > 0) & (jj < n - 1)
-            & (kk > 0) & (kk < p - 1))
+    """Interior mask of a whole ``(..., M, N, P)`` domain: the clamp ring on
+    all three axes."""
+    return _interior_mask(shape, 3, device)
 
 
 def run_sweeps(u: torch.Tensor, interior: torch.Tensor, w: torch.Tensor,
@@ -120,10 +127,8 @@ def stencil_rows_plain(a2: torch.Tensor, wf: torch.Tensor,
     """Plain version of :func:`stencil_rows`: every row at once, the k
     clamp ring zeroed after each sweep."""
     acc = acc_dtype_for(a2.dtype)
-    p = a2.shape[-1]
-    kk = torch.arange(p, device=a2.device)
-    u = run_sweeps(a2.to(acc), (kk > 0) & (kk < p - 1), wf.to(acc), plan,
-                   sweeps)
+    u = run_sweeps(a2.to(acc), _interior_mask(a2.shape, 1, a2.device),
+                   wf.to(acc), plan, sweeps)
     return u.to(a2.dtype)
 
 

@@ -22,19 +22,21 @@ from .plan import compile_plan
 from .spec import StencilSpec, get_stencil
 
 
-def _validate_blocks(m: int, n: int, bi: int, bj: Optional[int],
+def _validate_blocks(m: int, n: int, bi: Optional[int], bj: Optional[int],
                      sweeps: int, radius, apps: int = 1) -> None:
-    """The reference's contract for pinned blocks (``block_i`` divides M
-    and covers the fused-sweep halo; likewise a pinned ``block_j`` for N),
-    kept message for message so a call the reference refuses is refused
-    here too.  ``apps`` is the spec's applications per sweep."""
+    """The reference's contract for pinned blocks (a pinned ``block_i``
+    divides M and covers the fused-sweep halo; likewise a pinned
+    ``block_j`` for N), kept message for message so a call the reference
+    refuses is refused here too.  ``apps`` is the spec's applications per
+    sweep; ``None`` is a block the chooser picks."""
     ri, rj, _ = radius
-    if m % bi != 0:
-        raise ValueError(f"block size {bi} must divide M={m}")
-    if ri * sweeps * apps > bi:
-        raise ValueError(f"fused sweeps={sweeps} exceed the carried halo; "
-                         f"need block_i >= sweeps*r_i*sweep_apps "
-                         f"(block_i={bi}, r_i={ri}, sweep_apps={apps})")
+    if bi is not None:
+        if m % bi != 0:
+            raise ValueError(f"block size {bi} must divide M={m}")
+        if ri * sweeps * apps > bi:
+            raise ValueError(f"fused sweeps={sweeps} exceed the carried "
+                             f"halo; need block_i >= sweeps*r_i*sweep_apps "
+                             f"(block_i={bi}, r_i={ri}, sweep_apps={apps})")
     if bj is not None:
         if n % bj != 0:
             raise ValueError(f"block size {bj} must divide N={n}")
@@ -115,11 +117,11 @@ def stencil_apply(a: torch.Tensor, w,
     m, n, p = a.shape[-3:]
     batch = int(np.prod(a.shape[:-3])) if a.dim() > 3 else 1
     a4 = a.reshape(batch, m, n, p).contiguous()
+    _validate_blocks(m, n, block_i, block_j, sweeps, spec.radius,
+                     spec.sweep_apps)
     bi, bj = block_i, block_j
     if bi is None or bj is None:
         _, bi, bj = autotune_engine(m, n, p, a.element_size(),
                                     sweeps=sweeps, plan=cplan, batch=batch,
                                     block_i=bi, block_j=bj, path=path)
-    _validate_blocks(m, n, bi, block_j, sweeps, spec.radius,
-                     spec.sweep_apps)
     return stencil_stream(a4, wf, cplan, bi, bj, sweeps).reshape(a.shape)

@@ -12,20 +12,9 @@ from __future__ import annotations
 
 import torch
 
-from .kernel import acc_dtype_for, check_slice
-from .plan import StencilPlan, compile_plan, execute_plan
+from .kernel import _interior_mask, acc_dtype_for, check_slice, run_sweeps
+from .plan import StencilPlan, compile_plan
 from .spec import get_stencil
-
-
-def _interior_mask(shape, ndim: int, device) -> torch.Tensor:
-    """True off the one-point ring of the trailing ``ndim`` axes."""
-    mask = torch.ones((), dtype=torch.bool, device=device)
-    for ax in range(-ndim, 0):
-        n = shape[ax]
-        idx = torch.arange(n, device=device).view(
-            (n,) + (1,) * (-ax - 1))
-        mask = mask & (idx > 0) & (idx < n - 1)
-    return mask
 
 
 def apply_plan_once(u: torch.Tensor, w: torch.Tensor,
@@ -33,8 +22,8 @@ def apply_plan_once(u: torch.Tensor, w: torch.Tensor,
     """One clamp application of the planned operator, in ``u.dtype``:
     masked execution on the unpadded field (the zero-fill shifts are the
     clamp ghosts)."""
-    mask = _interior_mask(u.shape, cplan.spec.ndim, u.device)
-    return torch.where(mask, execute_plan(cplan, u, w), 0.0)
+    return run_sweeps(u, _interior_mask(u.shape, cplan.spec.ndim, u.device),
+                      w, cplan, 1)
 
 
 def stencil_ref(a: torch.Tensor, w, stencil="stencil27", sweeps: int = 1,
@@ -52,6 +41,6 @@ def stencil_ref(a: torch.Tensor, w, stencil="stencil27", sweeps: int = 1,
     u = a.to(acc)
     wf = spec.canon_weights(torch.as_tensor(w)).to(device=a.device,
                                                    dtype=acc)
-    for _ in range(sweeps):
-        u = apply_plan_once(u, wf, cplan)
+    u = run_sweeps(u, _interior_mask(u.shape, spec.ndim, a.device), wf,
+                   cplan, sweeps)
     return u.to(a.dtype)

@@ -191,10 +191,28 @@ def test_autotune_fills_the_card_within_shared_memory():
                                   sweeps=3, block_i=20)
     assert bi2 == 20
     assert stream_smem_bytes(bj2, (2, 2, 2), 8) <= SMEM_PER_BLOCK
-    # the chooser honours the reference's halo contract on block_i
-    _, bi3, _ = autotune_engine(40, 72, 100, 4, plan=compile_plan("box125"),
-                                sweeps=3)
-    assert bi3 >= 6 and 40 % bi3 == 0
+    # one launch per sweep: the chooser's block_i covers the r_i lead-in
+    # and does not depend on sweeps (the fused halo binds pinned blocks only)
+    _, bi3, bj3 = autotune_engine(40, 72, 100, 4, plan=compile_plan("box125"),
+                                  sweeps=3)
+    assert bi3 >= 2 and 40 % bi3 == 0
+    assert (bi3, bj3) == autotune_engine(40, 72, 100, 4, sweeps=1,
+                                         plan=compile_plan("box125"))[1:]
+    assert autotune_engine(512, 512, 512, 4, plan=compile_plan("stencil27"),
+                           sweeps=64) == (path, bi, bj)
+
+
+def test_chooser_blocks_take_more_sweeps_than_the_fused_halo():
+    # sweeps * r_i = 5 exceeds M = 4: a pinned block_i is refused as in the
+    # reference, chosen blocks run the chained sweeps
+    a, w = _ints(84, (1, 4, 12, 24)), _ints(85, (4,)) % 2
+    want = _jref(a, w, "stencil7", 5)
+    got = stencil_apply(torch.tensor(a), torch.tensor(w), "stencil7",
+                        sweeps=5)
+    np.testing.assert_array_equal(got.numpy(), want)
+    with pytest.raises(ValueError, match="exceed the carried halo"):
+        stencil_apply(torch.tensor(a), torch.tensor(w), "stencil7",
+                      sweeps=5, block_i=4)
 
 
 def test_pick_block_rows_and_bytes_per_point():
