@@ -6,4 +6,6 @@ from .stencil_engine import (BC, PATH_KINDS, StencilPlan,  # noqa: F401
                              bytes_per_point, carry_over, compile_plan,
                              dirichlet, get_stencil, list_stencils,
                              pick_block_rows, register_stencil,
-                             spec_from_mask, stencil_apply, stencil_ref)
+                             spec_from_mask, stencil3, stencil3_ref,
+                             stencil7, stencil7_ref, stencil27,
+                             stencil27_ref, stencil_apply, stencil_ref)

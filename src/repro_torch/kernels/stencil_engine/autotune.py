@@ -20,6 +20,12 @@ shared memory.  Each of its ``STREAM_THREAD_ROWS`` rows of threads computes
   lead-in and tail planes on top of the points it owns, so long chunks
   cost less (most of it hits the 50 MB L2).
 
+The replicated-halo kernel (``csrc/stencil_replicate.cu``,
+``path="replicate"``) runs a fixed, untuned output tile
+(:func:`replicate_tile`): it fuses as many sweeps per launch as the tile's
+``r * sweeps``-widened copies fit in the block's shared memory.  Choosing
+its tile, or B3 itself, on measured times is ROADMAP A7's routing work.
+
 No TPU constant is carried over: the reference's ``autotune.py`` ranks
 blocks on a TPU roofline against a VMEM budget, which does not describe
 this card.
@@ -50,26 +56,34 @@ def acc_itemsize_for(itemsize: int) -> int:
     return 8 if itemsize == 8 else 4
 
 
-def bytes_per_point(path: str, itemsize: int, sweeps: int = 1) -> float:
+def bytes_per_point(path: str, itemsize: int, sweeps: int = 1,
+                    coef: str = "const", n_weights: int = 0,
+                    group: Optional[int] = None) -> float:
     """Device-memory bytes per output point per sweep of one
-    ``stencil_apply`` call, each input plane read once and each output plane
-    written once per launch.
+    ``stencil_apply`` call, each input point read once and each output
+    point written once per launch.
 
     The streaming path runs ``s`` sweeps as ``s`` launches through an
     accumulation-dtype ping-pong buffer: sweep 1 reads the input and writes
     the buffer, later sweeps read and write the buffer, and the last writes
     the output -- ``(2 * itemsize + 2 * (s - 1) * acc_itemsize) / s`` per
-    point-sweep, against ``2 * itemsize / s`` for sweeps fused in one
-    launch (a later port slice).
+    point-sweep.  The replicated path fuses ``group`` sweeps (default: all
+    ``s``) per launch, so it makes ``ceil(s / group)`` such launches
+    (``2 * itemsize / s`` when all are fused; the halo re-reads, which hit
+    mostly in L2, are not counted).  ``coef="var"`` adds each launch's read
+    of the ``n_weights`` coefficient fields in the accumulation dtype.
     """
-    if path != "stream":
+    if path not in ("stream", "replicate"):
         raise NotImplementedError(
-            f"path {path!r} is not ported yet (ROADMAP A6 replicate, A7 "
-            f"wavefront); the port streams")
+            f"path {path!r} is not ported yet (ROADMAP A7 wavefront); the "
+            f"port streams or replicates")
     if sweeps < 1:
         raise ValueError(f"sweeps must be >= 1, got {sweeps}")
     acc = acc_itemsize_for(itemsize)
-    return (2 * itemsize + 2 * (sweeps - 1) * acc) / sweeps
+    launches = sweeps if path == "stream" else _cdiv(sweeps, group or sweeps)
+    coefs = n_weights * acc if coef == "var" else 0
+    return (2 * itemsize + 2 * (launches - 1) * acc
+            + launches * coefs) / sweeps
 
 
 def rows_per_thread(block_j: int) -> int:
@@ -114,8 +128,8 @@ def autotune_engine(m: int, n: int, p: int, itemsize: int,
                     block_i: Optional[int] = None,
                     block_j: Optional[int] = None,
                     path: str = "auto") -> Tuple[str, int, int]:
-    """The streaming kernel's ``(path, block_i, block_j)`` for a ``(batch,
-    m, n, p)`` field.
+    """The ``(path, block_i, block_j)`` a ``(batch, m, n, p)`` field runs
+    at.
 
     ``block_i`` (the i-chunk a block streams) runs over the divisors of
     ``m`` no shorter than the ``r_i``-plane lead-in; ``block_j`` (the j-tile
@@ -125,16 +139,24 @@ def autotune_engine(m: int, n: int, p: int, itemsize: int,
     r_i * sweeps * sweep_apps``; pinned blocks are still held to that by
     ``ops._validate_blocks``).  A pinned ``block_i`` or ``block_j`` is kept
     and the other is tuned.
+
+    ``path="auto"`` streams, as the reference does wherever the streaming
+    window fits (at radius <= 2 it always does here).  ``path="replicate"``
+    returns the replicated-halo kernel's output tile's i and j extents
+    (:func:`replicate_tile`, which also picks its k extent and the sweeps
+    per launch).
     """
     if path not in PATH_KINDS:
         raise ValueError(f"unknown path {path!r}; expected one of "
                          f"{PATH_KINDS}")
-    if path == "replicate":
-        raise NotImplementedError(
-            "path='replicate' (the stateless replicated-halo kernel) is not "
-            "ported yet (ROADMAP A6); use path='stream' or 'auto'")
     rad = tuple(plan.spec.radius) if plan is not None else (1, 1, 1)
     taps = plan.spec.taps if plan is not None else 27
+    if path == "replicate":
+        var = plan is not None and plan.spec.coef == "var"
+        ti, tj, _, _ = replicate_tile(
+            m, n, p, itemsize, sweeps, rad,
+            plan.spec.n_weights if var else 0, block_i, block_j)
+        return "replicate", ti, tj
     return ("stream",) + _choose_stream_blocks(m, n, p, itemsize, rad, taps,
                                                batch, block_i, block_j)
 
@@ -165,6 +187,64 @@ def _choose_stream_blocks(m: int, n: int, p: int, itemsize: int,
                 _stream_read_factor(bi, bj, rad), -bi)
 
     return min(((bi, bj) for bi in cands_i for bj in cands_j), key=key)
+
+
+# B3's output tile, not tuned: 4 x 8 points in (i, j), four rows for each
+# of the block's 8 warps (``csrc/stencil_replicate.cu:REP_THREAD_ROWS``,
+# ``REP_RPT``), and in k the width that gives the first of ``g`` fused
+# sweeps rows of two warps, ``64 - 2 r_k (g - 1)``, no less than one warp.
+REPLICATE_TILE_IJ = (4, 8)
+REPLICATE_ROW_K = 64
+
+
+def replicate_smem_bytes(tile: Tuple[int, int, int],
+                         radius: Tuple[int, int, int], sweeps: int,
+                         acc_itemsize: int, n_var: int = 0) -> int:
+    """Dynamic shared memory of one replicated-halo block: its output tile
+    widened by ``r * sweeps`` per side, twice (the sweeps' ping-pong; once
+    for one sweep), plus one coefficient tile per weight for variable
+    coefficients, all in the accumulation dtype."""
+    vol = math.prod(t + 2 * r * sweeps for t, r in zip(tile, radius))
+    return ((2 if sweeps > 1 else 1) + n_var) * vol * acc_itemsize
+
+
+@functools.lru_cache(maxsize=256)
+def replicate_tile(m: int, n: int, p: int, itemsize: int, sweeps: int,
+                   radius: Tuple[int, int, int], n_var: int = 0,
+                   block_i: Optional[int] = None,
+                   block_j: Optional[int] = None
+                   ) -> Tuple[int, int, int, int]:
+    """The replicated-halo kernel's ``(ti, tj, tk, group)``: its output tile
+    (:data:`REPLICATE_TILE_IJ`, :data:`REPLICATE_ROW_K`, each cut to the
+    domain; a pinned ``block_i`` / ``block_j`` fixes ``ti`` / ``tj``) and
+    the sweeps one launch fuses -- ``sweeps`` where the tile's widened
+    copies fit the block's shared memory, else the most that fit (the
+    wrapper then runs the sweeps in groups, one launch each).  Where not
+    even one sweep fits (variable coefficients with many weights), the
+    tile's longest unpinned extent is halved until it does.  Raises
+    ``ValueError`` when no tile holds one sweep.
+    """
+    acc = acc_itemsize_for(itemsize)
+    limit = SMEM_PER_BLOCK - STATIC_SMEM
+    ti = block_i or min(REPLICATE_TILE_IJ[0], m)
+    tj = block_j or min(REPLICATE_TILE_IJ[1], n)
+    for group in range(sweeps, 0, -1):
+        tk = min(max(REPLICATE_ROW_K - 2 * radius[2] * (group - 1), 32), p)
+        if replicate_smem_bytes((ti, tj, tk), radius, group, acc,
+                                n_var) <= limit:
+            return ti, tj, tk, group
+    tile = [ti, tj, tk]
+    free = [ax for ax, pinned in enumerate((block_i, block_j, None))
+            if pinned is None]
+    while replicate_smem_bytes(tile, radius, 1, acc, n_var) > limit:
+        ax = max(free, key=lambda x: tile[x])
+        if tile[ax] == 1:
+            raise ValueError(
+                f"stencil_replicate: no tile of radius {radius} fits "
+                f"{limit} bytes of shared memory for one sweep ({n_var} "
+                f"coefficient tiles; block_i={block_i}, block_j={block_j})")
+        tile[ax] = _cdiv(tile[ax], 2)
+    return tuple(tile) + (1,)
 
 
 def rows_smem_bytes(block_rows: int, p: int, acc_itemsize: int) -> int:

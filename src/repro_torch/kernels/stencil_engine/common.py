@@ -16,10 +16,12 @@ from __future__ import annotations
 
 from typing import List
 
+import torch
+
 SMEM_PER_BLOCK = 232_448
-# Statically allocated shared memory of either kernel (tap weights and
+# Statically allocated shared memory of any kernel (tap weights and
 # offsets), an upper bound: a block's dynamic window gets the rest.
-STATIC_SMEM = 2048
+STATIC_SMEM = 4096
 NUM_SMS = 132
 HBM_BYTES_PER_S = 3.35e12
 
@@ -38,6 +40,32 @@ STREAM_MAX_BLOCK_J = 64
 
 # Threads per block of the row kernel (``csrc/stencil_rows.cu``).
 ROWS_THREADS = 256
+
+MAX_TAPS = 125        # csrc/stencil_common.cuh:STENCIL_MAX_TAPS
+MAX_RADIUS = 2        # csrc/stencil_common.cuh:STENCIL_MAX_R
+
+
+def acc_dtype_for(dtype: torch.dtype) -> torch.dtype:
+    """bf16/f32 accumulate in f32; f64 stays f64."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def check_slice(spec) -> None:
+    """Raise ``NotImplementedError`` for what the port does not carry yet,
+    naming the ROADMAP item that will port it."""
+    if spec.ordering != "jacobi":
+        raise NotImplementedError(
+            f"{spec.name}: red-black ordering is not ported yet "
+            f"(ROADMAP A7)")
+    if spec.ndim == 3 and max(spec.radius) > MAX_RADIUS:
+        raise NotImplementedError(
+            f"{spec.name}: radius {spec.radius} exceeds the volumetric "
+            f"kernels' windows (radius <= {MAX_RADIUS} per axis; ROADMAP "
+            f"A5g)")
+    if spec.taps > MAX_TAPS:
+        raise NotImplementedError(
+            f"{spec.name}: {spec.taps} taps exceed the kernels' tap table "
+            f"({MAX_TAPS})")
 
 
 def divisors(x: int) -> List[int]:

@@ -23,6 +23,7 @@ import torch
 
 jax = pytest.importorskip("jax")
 
+from repro.kernels import get_stencil as jget_stencil  # noqa: E402
 from repro.kernels import spec_from_mask as jspec_from_mask  # noqa: E402
 from repro.kernels import stencil_apply as japply  # noqa: E402
 from repro.kernels import stencil_ref as jref  # noqa: E402
@@ -223,8 +224,10 @@ def test_pick_block_rows_and_bytes_per_point():
     assert bytes_per_point("stream", 4) == 8
     assert bytes_per_point("stream", 4, sweeps=2) == 8
     assert bytes_per_point("stream", 2, sweeps=2) == (4 + 8) / 2
-    with pytest.raises(NotImplementedError, match="A6"):
-        bytes_per_point("replicate", 4)
+    # the replicated path (ROADMAP A6, ported) fuses its sweeps
+    assert bytes_per_point("replicate", 4, sweeps=2) == 4
+    with pytest.raises(NotImplementedError, match="A7"):
+        bytes_per_point("wavefront", 4)
 
 
 # -- error paths ------------------------------------------------------------
@@ -267,20 +270,48 @@ def test_rows_block_message_matches_reference():
     ("stencil27", {"guard": "nan"}, "A8"),
 ])
 def test_out_of_slice_features_raise(stencil, kw, item):
+    """What the port does not carry yet raises, naming its ROADMAP item;
+    what later items ported (A5c boundaries, A6 the replicated path) now
+    matches the reference."""
     shape = SHAPE1 if stencil.startswith("stencil3") else SHAPE3
     w = np.ones(get_stencil(stencil).w_shape)
-    with pytest.raises(NotImplementedError, match=item):
-        stencil_apply(torch.zeros(shape), torch.tensor(w), stencil, **kw)
-    if not kw:
+    if item in ("A7", "A8"):
         with pytest.raises(NotImplementedError, match=item):
-            stencil_ref(torch.zeros(shape), torch.tensor(w), stencil)
+            stencil_apply(torch.zeros(shape), torch.tensor(w), stencil, **kw)
+        if not kw:
+            with pytest.raises(NotImplementedError, match=item):
+                stencil_ref(torch.zeros(shape), torch.tensor(w), stencil)
+        return
+    a = _ints(90, shape)
+    w = _ints(91, w.shape)
+    with jax.enable_x64(True):
+        want = np.asarray(jref(jax.numpy.asarray(a), jax.numpy.asarray(w),
+                               stencil, bc=kw.get("bc")))
+    got = stencil_apply(torch.tensor(a), torch.tensor(w), stencil, **kw)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if not kw:
+        np.testing.assert_array_equal(
+            stencil_ref(torch.tensor(a), torch.tensor(w), stencil).numpy(),
+            want)
 
 
 def test_variable_coefficients_raise():
+    """Variable coefficients (ROADMAP A5d, ported) match the reference, and
+    a coefficient array that does not cover the domain raises the
+    reference's ValueError."""
     spec = get_stencil("stencil7").with_coef("var")
-    w = torch.ones((4,) + SHAPE3[1:])
-    with pytest.raises(NotImplementedError, match="A5d"):
-        stencil_apply(torch.zeros(SHAPE3), w, spec)
+    jspec = jget_stencil("stencil7").with_coef("var")
+    a = _ints(92, SHAPE3)
+    w = _ints(93, (4,) + SHAPE3[1:])
+    want = _jref(a, w, jspec, 2)
+    got = stencil_apply(torch.tensor(a), torch.tensor(w), spec, sweeps=2)
+    np.testing.assert_array_equal(got.numpy(), want)
+    bad = np.ones((4, 3) + SHAPE3[2:])
+    with pytest.raises(ValueError) as je:
+        _jref(a, bad, jspec, 1)
+    with pytest.raises(ValueError) as te:
+        stencil_apply(torch.tensor(a), torch.tensor(bad), spec)
+    assert str(te.value) == str(je.value)
 
 
 def test_import_rules():
@@ -315,11 +346,13 @@ def test_tap_table_layout():
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
-    from repro_torch.kernels.stencil_engine import stencil_stream
+    from repro_torch.kernels.stencil_engine import (stencil_replicate,
+                                                    stencil_stream)
     a = torch.zeros((1, 4, 4, 4), device="meta")
-    with pytest.raises(ValueError, match="no kernel for device"):
-        stencil_stream(a, torch.zeros(8, device="meta"),
-                       compile_plan("stencil27"), 4, 8, 1)
+    for wrapper in (stencil_stream, stencil_replicate):
+        with pytest.raises(ValueError, match="no kernel for device"):
+            wrapper(a, torch.zeros(8, device="meta"),
+                    compile_plan("stencil27"), 4, 8, 1)
 
 
 def test_build_names_libraries_by_source_hash(tmp_path, monkeypatch):
